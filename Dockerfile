@@ -1,6 +1,6 @@
 # Container parity (SURVEY.md §2 'Container/CI' row). CPU-backend image:
-# runs the CLI, tests, and the quickstart; TPU runtimes come from the
-# deployment environment's libtpu, not this image.
+# runs the CLI, tests, and the quickstart; for the GPU, install JAX with its
+# CUDA plugin in the deployment environment (chip_smoke.py checks it).
 FROM python:3.12-slim
 RUN apt-get update && apt-get install -y --no-install-recommends g++ make \
     && rm -rf /var/lib/apt/lists/*

@@ -1,9 +1,9 @@
-"""desman_tpu — TPU-native strain deconvolution with DESMAN's capabilities.
+"""desman_tpu — GPU strain deconvolution in JAX with DESMAN's capabilities.
 
 A ground-up JAX/XLA/Pallas re-design (not a port) of chrisquince/DESMAN
 (Quince et al., Genome Biology 2017, 18:181): variant filtering, the
 tau/gamma/eta Gibbs sampler, model selection over the number of strains, and
-accessory-gene assignment, built for TPU meshes. See SURVEY.md for the
+accessory-gene assignment, built for GPU meshes. See SURVEY.md for the
 reference analysis this is built against.
 """
 

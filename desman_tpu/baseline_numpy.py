@@ -7,7 +7,7 @@ the same O(V*G*4*S) per-sweep math, vectorized numpy (if anything faster than
 a per-draw GSL loop, making the reported speedup conservative). Restrict BLAS
 threads to 1 before import to emulate the reference's single core.
 
-Used only by bench.py and equivalence tests — never on the TPU path.
+Used only by bench.py and equivalence tests — never on the device path.
 """
 from __future__ import annotations
 

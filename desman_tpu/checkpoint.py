@@ -44,7 +44,7 @@ def _on_sigterm(signum, frame):  # pragma: no cover - exercised via CLI test
 
 
 def install_preemption_handler() -> None:
-    """SIGTERM = preemption notice (the TPU-pod eviction contract): finish
+    """SIGTERM = preemption notice (the batch-scheduler eviction contract): finish
     the in-flight segment, commit its checkpoint, then raise Preempted at
     the next segment boundary instead of dying mid-save. Installed by the
     CLI for checkpointed runs; safe to call more than once."""

@@ -2,7 +2,7 @@
 
 Subcommands mirroring the reference's CLI surface and flag semantics
 (SURVEY.md §8: ``bin/desman``'s -g/-e/-o/-i/-s/-r/-m, the filter CLI, the
-GeneAssign CLI, resolvenhap) plus the TPU-native extensions:
+GeneAssign CLI, resolvenhap) plus the extensions of this implementation:
 
     extract      mpileup -> counts CSV (+ gene coverage); native C++ scanner
     filter       variant-position LLR filter -> sel_var/p/q/tran_df CSVs
@@ -48,6 +48,22 @@ def _expand_dirs(patterns) -> list:
     return dirs
 
 
+def _resolve_kernel(prog: str, kernel: str):
+    """--kernel name -> tau_sweep (None = XLA default); False after printing
+    why the kernel cannot run on this backend."""
+    from .ops import resolve_tau_sweep
+    from .ops.tau_pallas import require_gpu
+
+    tau_sweep = resolve_tau_sweep(kernel)
+    if tau_sweep is not None:
+        try:
+            require_gpu(interpret=False)
+        except ValueError as e:
+            print(f"{prog}: --kernel {kernel}: {e}", file=sys.stderr)
+            return False
+    return tau_sweep
+
+
 def _desman(argv) -> int:
     ap = argparse.ArgumentParser(
         prog="desman", description="Strain deconvolution (tau/gamma/eta Gibbs sampler)"
@@ -83,13 +99,10 @@ def _desman(argv) -> int:
     ap.add_argument("--checkpoint_every", type=int, default=50)
     ap.add_argument("--profile", default=None,
                     help="write a jax.profiler device trace to this dir")
-    ap.add_argument("--kernel",
-                    choices=["xla", "pallas", "pallas_topk",
-                             "pallas_resident"],
-                    default="xla",
-                    help="tau-sweep implementation (pallas_resident: the "
-                    "whole sweep on base-major tiles — fastest single-"
-                    "device mode, plain runs only)")
+    ap.add_argument("--kernel", choices=["xla", "pallas"], default="xla",
+                    help="tau-sweep implementation: xla (plain XLA, any "
+                    "backend) or pallas (fused Pallas/Triton kernel with "
+                    "the swap move as its epilogue; GPU only)")
     ap.add_argument("--pt", type=int, default=0, metavar="R",
                     help="parallel tempering with R replicas (better mixing "
                     "on multimodal posteriors; composes with --chains/"
@@ -163,20 +176,9 @@ def _desman(argv) -> int:
               "(replicas already occupy the mesh chain axis)",
               file=sys.stderr)
         return 2
-    if args.kernel == "pallas_resident" and (
-            args.mesh or args.pt >= 2 or auto or args.checkpoint
-            or args.store_every or args.tau_fixed
-            or args.eta_update == "rows"):
-        print("desman: --kernel pallas_resident is the single-device speed "
-              "mode for plain runs (composes with --chains only); use "
-              "--kernel pallas for --mesh/--pt/--auto_*/--checkpoint/"
-              "--store_every/-f/--eta_update rows", file=sys.stderr)
+    tau_sweep = _resolve_kernel("desman", args.kernel)
+    if tau_sweep is False:
         return 2
-    from .ops import resolve_tau_sweep
-
-    # all three kernels compose with --mesh since r5: run.bind_kernel wraps
-    # pallas in the shard_map sweep and pre-splits the topk static layout
-    tau_sweep = resolve_tau_sweep(args.kernel)
     mesh = None
     if args.mesh:
         from .parallel import make_mesh
@@ -190,8 +192,8 @@ def _desman(argv) -> int:
                   f"chain axis {c}", file=sys.stderr)
             return 2
     if args.checkpoint:
-        # SIGTERM (pod eviction / preemption) -> finish the in-flight
-        # segment, commit its checkpoint, exit 75 (resumable)
+        # SIGTERM (scheduler eviction / preemption) -> finish the
+        # in-flight segment, commit its checkpoint, exit 75 (resumable)
         from .checkpoint import Preempted, install_preemption_handler
 
         install_preemption_handler()
@@ -256,11 +258,10 @@ def _filter(argv) -> int:
     sel = data.select(np.flatnonzero(res.selected))
     io.write_counts_csv(stub + "sel_var.csv", sel)
     io.write_eta_csv(stub + "tran_df.csv", res.eta)
-    import pandas as pd
-
-    pos_df = {"Contig": data.contigs, "Position": data.positions}
-    pd.DataFrame({**pos_df, "p": res.pvalues}).to_csv(stub + "p_df.csv", index=False)
-    pd.DataFrame({**pos_df, "q": res.qvalues}).to_csv(stub + "q_df.csv", index=False)
+    io.write_position_csv(stub + "p_df.csv", data.contigs, data.positions,
+                          "p", res.pvalues)
+    io.write_position_csv(stub + "q_df.csv", data.contigs, data.positions,
+                          "q", res.qvalues)
     with open(stub + "log_file.txt", "w") as f:
         f.write(
             f"positions={data.V} selected={int(res.selected.sum())} "
@@ -524,21 +525,17 @@ def _multibin(argv) -> int:
     ap.add_argument("-s", "--seed", type=int, default=0)
     ap.add_argument("-e", "--eta_file", default=None,
                     help="tran_df.csv: fix eta for every bin")
-    ap.add_argument("--kernel", choices=["xla", "pallas", "pallas_topk"],
-                    default="xla")
+    ap.add_argument("--kernel", choices=["xla", "pallas"], default="xla")
     args = ap.parse_args(argv)
 
     from . import io
     from .multibin import run_bins_files
-    from .ops import resolve_tau_sweep
     from .sampler import SamplerConfig, tau_sweep_xla
 
-    tau_sweep = resolve_tau_sweep(args.kernel) or tau_sweep_xla
-    if getattr(tau_sweep, "needs_counts", False):
-        print("desman-multibin: --kernel pallas_topk binds to one counts "
-              "tensor; unsupported for batched bins (use xla or pallas)",
-              file=sys.stderr)
+    tau_sweep = _resolve_kernel("desman-multibin", args.kernel)
+    if tau_sweep is False:
         return 2
+    tau_sweep = tau_sweep or tau_sweep_xla
     eta = io.read_eta_csv(args.eta_file) if args.eta_file else None
     burn = args.iterations // 2
     cfg = SamplerConfig(G=args.num_strains, burn=burn,
@@ -734,8 +731,9 @@ _COMMANDS = {
 
 
 def _enable_compilation_cache() -> None:
-    """Every (G, V, S, sweeps) shape is a fresh compile (~1 min on TPU) and
-    model-selection grids touch many — cache them across runs."""
+    """Every (G, V, S, sweeps) shape is a fresh compile, far longer than a
+    short run, and model-selection grids touch many — cache them across
+    runs."""
     try:
         from .utils import enable_compilation_cache
 

@@ -1,6 +1,6 @@
 """Variant-position filter: likelihood-ratio test + error-matrix estimation.
 
-TPU-native counterpart of the reference's ``desman/Variant_Filter.py``
+JAX counterpart of the reference's ``desman/Variant_Filter.py``
 (SURVEY.md §2, §3.2). Per position (pooled base counts across samples):
 
   H0: one true base a plus sequencing error        -> p_b = eta[a, b]
@@ -76,7 +76,7 @@ _PAIRS = np.array(all_base_pairs(), dtype=np.int32)  # [6,2]
 
 def _h0_loglik(c: jax.Array, eta: jax.Array):
     """Best single-base log-likelihood per position. c: [V,4] -> ([V], [V])."""
-    ll = c @ safe_log(eta).T                     # [V,4]: ll[v,a] = sum_b c_vb log eta[a,b]
+    ll = heinsum("vb,ab->va", c, safe_log(eta))  # ll[v,a] = sum_b c_vb log eta[a,b]
     return jnp.max(ll, axis=1), jnp.argmax(ll, axis=1)
 
 
@@ -169,7 +169,7 @@ def _reestimate_eta(c: jax.Array, base0: jax.Array, consistent: jax.Array):
     """
     w = consistent.astype(jnp.float32)[:, None] * c      # [V,4]
     onehot = jax.nn.one_hot(base0, NBASES)               # [V,4]
-    rows = onehot.T @ w                                  # [4,4]
+    rows = heinsum("va,vb->ab", onehot, w)              # [4,4]
     rows = rows + jnp.eye(NBASES)
     return rows / jnp.sum(rows, axis=1, keepdims=True)
 

@@ -9,7 +9,7 @@ where cov[g,s] = gamma[s,g] * total_cov[s] is strain g's absolute coverage in
 sample s derived from the core-gene gamma, and etaG[d,g] in {0..max_copy} is
 gene d's copy number in strain g.
 
-TPU-first design (per BASELINE.json: "vmapped likelihood evaluations against
+Accelerator-first design (per BASELINE.json: "vmapped likelihood evaluations against
 inferred gamma"): instead of the reference's per-gene MCMC (Eta_Sampler,
 SURVEY.md §2), the default mode **exactly enumerates** all (max_copy+1)^G
 copy-number states — one [K,S] mu matrix shared by every gene, one
@@ -136,7 +136,7 @@ def _gibbs_assign(x, cov, cfg: GeneAssignConfig, key):
     the rest (the reference Eta_Sampler's conditional update, SURVEY.md §3.3).
 
     ``gibbs_restarts`` independent annealed chains run per gene (a second
-    vmap axis — free parallelism on TPU) and the best-likelihood state wins:
+    vmap axis — free parallelism on the device) and the best-likelihood state wins:
     measured at G=14/D=120, a single chain freezes into a local optimum on
     ~3% of genes (states up to ~22 nats WORSE than the planted truth) while
     best-of-4 returns a state at least as likely as the truth for every gene

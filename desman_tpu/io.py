@@ -19,12 +19,12 @@ model-selection CLI parses it).
 from __future__ import annotations
 
 import contextlib
+import csv
 import os
 import re
 from dataclasses import dataclass
 
 import numpy as np
-import pandas as pd
 
 from .utils import BASES, NBASES
 
@@ -92,6 +92,41 @@ def decompressed(path: str):
         os.unlink(tmp.name)
 
 
+def _read_rows(path: str):
+    """(header, body rows) of a CSV file; blank lines are skipped."""
+    with open(path, newline="") as f:
+        rows = [r for r in csv.reader(f) if r]
+    if not rows:
+        raise ValueError(f"{path}: empty CSV")
+    return rows[0], rows[1:]
+
+
+def _write_rows(path: str, header, columns, matrix=None) -> None:
+    """Write CSV columns: ``columns`` is a list of 1-D arrays and ``matrix``
+    an optional 2-D array appended column-wise. Values are formatted by
+    numpy's ``str`` (shortest round-trip repr of each dtype), the format
+    the reference tooling's pandas writer produces."""
+    cols = [np.asarray(c).astype(str).tolist() for c in columns]
+    body = [list(r) for r in zip(*cols)] if cols else None
+    if matrix is not None:
+        mat = np.asarray(matrix).astype(str).tolist()
+        body = mat if body is None else [a + b for a, b in zip(body, mat)]
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(header)
+        w.writerows(body or [])
+
+
+def _float_matrix(body, first: int, path: str) -> np.ndarray:
+    """Columns ``first:`` of the body rows as a float64 matrix."""
+    if not body:
+        return np.zeros((0, 0), np.float64)
+    try:
+        return np.array([r[first:] for r in body]).astype(np.float64)
+    except ValueError as e:
+        raise ValueError(f"{path}: non-numeric value ({e})") from None
+
+
 def read_counts_csv(path: str, prefer_native: bool = True) -> CountsData:
     """Read a DESMAN variant-count CSV into a dense [V,S,4] tensor.
 
@@ -100,7 +135,7 @@ def read_counts_csv(path: str, prefer_native: bool = True) -> CountsData:
     ``Contig,Position`` (any capitalization). Gzipped (.gz) input is
     handled transparently. Uses the C++ reader (desman_tpu.native, ~10x
     faster) when its library is available; format errors fall through to
-    the pandas path so messages stay uniform.
+    the Python reader so messages stay uniform.
     """
     if str(path).endswith(".gz"):
         with decompressed(path) as plain:
@@ -112,17 +147,15 @@ def read_counts_csv(path: str, prefer_native: bool = True) -> CountsData:
             if native.available():
                 return native.read_counts_csv_native(path)
         except (ValueError, OSError):
-            pass  # fall back to the pandas reader (and its error reporting)
-    df = pd.read_csv(path)
-    cols = list(df.columns)
+            pass  # fall back to the Python reader (and its error reporting)
+    cols, body = _read_rows(path)
     if len(cols) < 2 + NBASES:
         raise ValueError(f"{path}: expected Contig,Position + per-sample base columns")
-    contig_col, pos_col = cols[0], cols[1]
 
     sample_names: list = []
     sample_cols: dict = {}
     pat = re.compile(r"^(.*)[-._]([ACGT])$")
-    for c in cols[2:]:
+    for j, c in enumerate(cols[2:], start=2):
         m = pat.match(str(c))
         if not m:
             raise ValueError(f"{path}: column {c!r} does not look like '<sample>-A/C/G/T'")
@@ -130,56 +163,83 @@ def read_counts_csv(path: str, prefer_native: bool = True) -> CountsData:
         if name not in sample_cols:
             sample_cols[name] = {}
             sample_names.append(name)
-        sample_cols[name][base] = c
+        sample_cols[name][base] = j
 
-    V = len(df)
+    V = len(body)
     S = len(sample_names)
+    if any(len(r) != len(cols) for r in body):
+        raise ValueError(f"{path}: rows must have {len(cols)} fields")
+    if V:
+        try:
+            table = np.array([r[2:] for r in body]).astype(np.int64)
+        except ValueError as e:
+            raise ValueError(f"{path}: non-integer count ({e})") from None
+    else:
+        table = np.zeros((0, len(cols) - 2), np.int64)
     counts = np.zeros((V, S, NBASES), dtype=np.int32)
     for s, name in enumerate(sample_names):
         for a, base in enumerate(BASES):
-            col = sample_cols[name].get(base)
-            if col is None:
+            j = sample_cols[name].get(base)
+            if j is None:
                 raise ValueError(f"{path}: sample {name!r} missing base column {base}")
-            counts[:, s, a] = df[col].to_numpy(dtype=np.int64)
+            counts[:, s, a] = table[:, j - 2]
 
     return CountsData(
         counts=counts,
-        contigs=df[contig_col].to_numpy(),
-        positions=df[pos_col].to_numpy(),
+        contigs=np.array([r[0] for r in body]),
+        positions=np.array([int(r[1]) for r in body], dtype=np.int64),
         samples=sample_names,
     )
 
 
 def write_counts_csv(path: str, data: CountsData) -> None:
     """Inverse of read_counts_csv (used by the filter to emit sel_var.csv)."""
-    out = {"Contig": data.contigs, "Position": data.positions}
-    for s, name in enumerate(data.samples):
-        for a, base in enumerate(BASES):
-            out[f"{name}-{base}"] = data.counts[:, s, a]
-    pd.DataFrame(out).to_csv(path, index=False)
+    header = ["Contig", "Position"] + [
+        f"{name}-{base}" for name in data.samples for base in BASES]
+    _write_rows(path, header, [data.contigs, data.positions],
+                np.asarray(data.counts).reshape(data.V, -1))
 
 
-def read_gene_cov_csv(path: str) -> pd.DataFrame:
-    """Gene-coverage matrix [D genes x S samples] (GeneAssign input).
+def write_position_csv(path: str, contigs, positions, name: str,
+                       values) -> None:
+    """Contig,Position,<name> table (the filter's p_df/q_df outputs)."""
+    _write_rows(path, ["Contig", "Position", name],
+                [contigs, positions, np.asarray(values)])
+
+
+def write_records_csv(path: str, records) -> None:
+    """One row per dict (keys of the first give the columns); None is
+    written as an empty field."""
+    fields = list(records[0]) if records else []
+    _write_rows(path, fields, [
+        np.array(["" if r[k] is None else r[k] for r in records], dtype=object)
+        for k in fields])
+
+
+def read_gene_cov_csv(path: str):
+    """Gene-coverage matrix [D genes x S samples] (GeneAssign input) as a
+    pandas DataFrame — geneassign is an optional stage that needs pandas.
 
     Drops the ``n_positions`` metadata column genecov/extract prepend —
     it is bookkeeping, not a sample.
     """
+    import pandas as pd
+
     df = pd.read_csv(path, index_col=0)
     return df.drop(columns=["n_positions"], errors="ignore")
 
 
 def read_eta_csv(path: str) -> np.ndarray:
     """Read a tran_df.csv-style 4x4 eta (row = true base, col = read base)."""
-    df = pd.read_csv(path, index_col=0)
-    eta = df.to_numpy(dtype=np.float64)
+    _, body = _read_rows(path)
+    eta = _float_matrix(body, 1, path)
     if eta.shape != (NBASES, NBASES):
         raise ValueError(f"{path}: expected 4x4 matrix, got {eta.shape}")
     return eta
 
 
 def write_eta_csv(path: str, eta: np.ndarray) -> None:
-    pd.DataFrame(np.asarray(eta), index=list(BASES), columns=list(BASES)).to_csv(path)
+    _write_rows(path, [""] + list(BASES), [list(BASES)], np.asarray(eta))
 
 
 def write_gamma_csv(path: str, gamma: np.ndarray, samples=None) -> None:
@@ -187,12 +247,13 @@ def write_gamma_csv(path: str, gamma: np.ndarray, samples=None) -> None:
     gamma = np.asarray(gamma)
     S, G = gamma.shape
     idx = samples if samples is not None else [f"S{i}" for i in range(S)]
-    cols = [f"H{g + 1}" for g in range(G)]
-    pd.DataFrame(gamma, index=idx, columns=cols).to_csv(path)
+    _write_rows(path, [""] + [f"H{g + 1}" for g in range(G)],
+                [np.asarray(idx)], gamma)
 
 
 def read_gamma_csv(path: str) -> np.ndarray:
-    return pd.read_csv(path, index_col=0).to_numpy(dtype=np.float64)
+    _, body = _read_rows(path)
+    return _float_matrix(body, 1, path)
 
 
 def write_tau_star_csv(
@@ -205,22 +266,21 @@ def write_tau_star_csv(
     """
     tau_idx = np.asarray(tau_idx)
     V, G = tau_idx.shape
-    out = {"Contig": contigs, "Position": positions}
-    for g in range(G):
-        onehot = np.eye(NBASES, dtype=np.int64)[tau_idx[:, g]]
-        for a, base in enumerate(BASES):
-            out[f"H{g + 1}-{base}"] = onehot[:, a]
-    pd.DataFrame(out).to_csv(path, index=False)
+    onehot = np.eye(NBASES, dtype=np.int64)[tau_idx].reshape(V, G * NBASES)
+    header = ["Contig", "Position"] + [
+        f"H{g + 1}-{base}" for g in range(G) for base in BASES]
+    _write_rows(path, header, [np.asarray(contigs), np.asarray(positions)],
+                onehot)
 
 
 def read_tau_star_csv(path: str):
     """Read a Filtered_Tau_star.csv back to ([V,G] int calls, contigs, positions)."""
-    df = pd.read_csv(path)
-    contigs = df.iloc[:, 0].to_numpy()
-    positions = df.iloc[:, 1].to_numpy()
-    base_cols = [c for c in df.columns[2:]]
-    G = len(base_cols) // NBASES
-    onehot = df[base_cols].to_numpy(dtype=np.int64).reshape(len(df), G, NBASES)
+    header, body = _read_rows(path)
+    G = (len(header) - 2) // NBASES
+    onehot = _float_matrix(body, 2, path).astype(np.int64).reshape(
+        len(body), G, NBASES)
+    contigs = np.array([r[0] for r in body])
+    positions = np.array([int(r[1]) for r in body], dtype=np.int64)
     return onehot.argmax(axis=2).astype(np.int32), contigs, positions
 
 
@@ -228,18 +288,16 @@ def write_tau_mean_csv(path: str, tau_mean: np.ndarray, contigs, positions) -> N
     """Posterior base probabilities [V,G,4] (used for SNV uncertainty)."""
     tau_mean = np.asarray(tau_mean)
     V, G, _ = tau_mean.shape
-    out = {"Contig": contigs, "Position": positions}
-    for g in range(G):
-        for a, base in enumerate(BASES):
-            out[f"H{g + 1}-{base}"] = tau_mean[:, g, a]
-    pd.DataFrame(out).to_csv(path, index=False)
+    header = ["Contig", "Position"] + [
+        f"H{g + 1}-{base}" for g in range(G) for base in BASES]
+    _write_rows(path, header, [np.asarray(contigs), np.asarray(positions)],
+                tau_mean.reshape(V, G * NBASES))
 
 
 def read_tau_mean_csv(path: str) -> np.ndarray:
-    df = pd.read_csv(path)
-    base_cols = list(df.columns[2:])
-    G = len(base_cols) // NBASES
-    return df[base_cols].to_numpy(dtype=np.float64).reshape(len(df), G, NBASES)
+    header, body = _read_rows(path)
+    G = (len(header) - 2) // NBASES
+    return _float_matrix(body, 2, path).reshape(len(body), G, NBASES)
 
 
 def write_fit_txt(

@@ -113,7 +113,7 @@ def fit_grid(
     deviances the selection rule compares then carry a guaranteed MC
     precision instead of whatever a fixed -i happened to buy. Trades away
     the AOT compile pipelining (segmented host loop); composes with
-    ``mesh``, not with the resident kernel marker.
+    ``mesh``.
 
     Replaces the reference's shell-level process fan-out (SURVEY.md §2.2
     'multi-chain parallel'): seeds are vmapped; G values loop on host. Pass a
@@ -126,12 +126,12 @@ def fit_grid(
     ``resume=False`` to force recomputation.
 
     Compilation pipelining: each G is its own XLA executable, and at grid
-    scale (V ~1e3) compiling dominates wall time ~1000:1 over executing
-    (measured: ~10 s compile vs ~10 ms run per G on a v5e). The per-G
-    programs are therefore AOT-compiled (`jit(...).lower().compile()`) in a
-    small thread pool while earlier Gs execute, so the grid costs roughly
-    one compile instead of len(g_values) of them. Results are bitwise
-    identical to the sequential path (same jaxpr, same keys).
+    scale (V ~1e3) compiling a per-G program takes far longer than running
+    it. The per-G programs are therefore AOT-compiled
+    (`jit(...).lower().compile()`) in a small thread pool while earlier Gs
+    execute, so the grid costs roughly one compile instead of
+    len(g_values) of them. Results are bitwise identical to the sequential
+    path (same jaxpr, same keys).
     """
     import math
 
@@ -143,20 +143,12 @@ def fit_grid(
     burn = iterations // 2
     eta = None if eta_init is None else jnp.asarray(eta_init, jnp.float32)
 
-    # kernel selections resolve exactly as in the CLI runner: topk factories
-    # bind to THESE counts (+mesh pre-split), the resident marker routes the
-    # per-G programs through run_chains_resident below
+    # kernel selections resolve exactly as in the CLI runner (the pallas
+    # kernel is wrapped in shard_map under a mesh)
     tau_sweep = bind_kernel(tau_sweep, np.asarray(counts), mesh)
-    resident = bool(getattr(tau_sweep, "resident", False))
-    if resident and mesh is not None:
-        raise ValueError("kernel 'pallas_resident' is single-device; "
-                         "use 'pallas' with a mesh")
-    if resident and ess_target > 0:
-        raise ValueError("ess_target needs the segmented converge path; "
-                         "use kernel 'pallas' with it")
 
     records: List[RunRecord] = []
-    kw = {"tau_sweep": tau_sweep} if (tau_sweep and not resident) else {}
+    kw = {"tau_sweep": tau_sweep} if tau_sweep else {}
 
     digest = _data_digest(counts, eta_init) if out_stub is not None else None
     if digest is not None and ess_target > 0:
@@ -202,16 +194,8 @@ def fit_grid(
 
         def build(G: int):
             cfg = make_cfg(G)
-            if resident:
-                from .resident import run_chain_resident
-
-                prog = jax.jit(lambda n, keys: jax.vmap(
-                    lambda k: run_chain_resident(n, cfg, k,
-                                                 eta_init=eta))(keys))
-            else:
-                prog = jax.jit(lambda n, keys: jax.vmap(
-                    lambda k: run_chain(n, cfg, k, eta_init=eta,
-                                        **kw))(keys))
+            prog = jax.jit(lambda n, keys: jax.vmap(
+                lambda k: run_chain(n, cfg, k, eta_init=eta, **kw))(keys))
             return prog.lower(n, keys).compile()
 
         pool = ThreadPoolExecutor(max_workers=min(4, max(len(todo), 1)))
@@ -252,10 +236,6 @@ def fit_grid(
                 fut = compiled.pop(G, None)
                 if fut is not None:
                     res = fut.result()(n, keys)
-                elif resident:
-                    from .resident import run_chains_resident
-
-                    res = run_chains_resident(n, cfg, seeds, eta_init=eta)
                 else:
                     # done_on_disk flipped True->False since pool setup (dir
                     # deleted mid-run): no AOT program exists, fall back to

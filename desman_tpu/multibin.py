@@ -2,13 +2,14 @@
 
 The reference processes one genome bin at a time (one OS process per
 ``desman`` run — SURVEY.md §3.5); a metagenome yields tens of bins that
-share the same sample set, so on TPU the natural batching axis is the bin:
+share the same sample set, so on an accelerator the natural batching axis
+is the bin:
 pad each bin's variant positions to a common V (zero-count rows are
 likelihood-neutral: n=0 kills every log term and the multinomial
 coefficient) and vmap the whole chain over bins. One compile covers all
 bins with the same G; per-bin results are sliced back out.
 
-This is additional TPU-native surface, not reference parity — the
+This is additional surface of this implementation, not reference parity — the
 reference's equivalent is a shell loop over bins.
 """
 from __future__ import annotations

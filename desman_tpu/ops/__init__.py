@@ -1,41 +1,19 @@
-"""Pallas TPU kernels for the sampler hot path."""
+"""Pallas GPU kernels for the sampler hot path."""
 
 from .tau_pallas import tau_sweep_pallas
-from .tau_topk import make_tau_sweep_topk
 
 
 def resolve_tau_sweep(kernel):
     """Kernel name -> tau_sweep fn (None = caller's default, the XLA path).
 
     Single source of truth for the CLI/pipeline ``kernel`` option; unknown
-    names raise instead of silently running the default. ``pallas_topk``
-    returns a FACTORY (``needs_counts`` attribute set) that the runner
-    binds to the post-filter counts (run.py) — the compressed layout is a
-    static function of the data.
+    names raise instead of silently running the default.
     """
     if kernel in (None, "", "xla"):
         return None
     if kernel == "pallas":
         return tau_sweep_pallas
-    if kernel == "pallas_topk":
-        factory = make_tau_sweep_topk
-        factory.needs_counts = True
-        return factory
-    if kernel == "pallas_resident":
-        # marker: run.py routes to resident.run_chain(s)_resident — the
-        # whole sweep runs on base-major tiles, not just the tau update,
-        # so it is not a drop-in tau_sweep fn
-        return _RESIDENT
-    raise ValueError(
-        f"unknown tau kernel {kernel!r}; one of: xla, pallas, pallas_topk, "
-        "pallas_resident")
+    raise ValueError(f"unknown tau kernel {kernel!r}; one of: xla, pallas")
 
 
-class _ResidentMarker:
-    resident = True
-
-
-_RESIDENT = _ResidentMarker()
-
-
-__all__ = ["tau_sweep_pallas", "make_tau_sweep_topk", "resolve_tau_sweep"]
+__all__ = ["tau_sweep_pallas", "resolve_tau_sweep"]

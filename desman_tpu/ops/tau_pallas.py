@@ -1,22 +1,28 @@
-"""Fused Pallas kernel for the tau Gibbs sweep — the framework's hot loop.
+"""Fused tau Gibbs sweep for the GPU: Pallas on the Triton route.
 
-The XLA path (sampler.tau_sweep_xla) round-trips the [V,S,4] mixture through
-HBM once per strain (G reads + G writes per sweep). This kernel runs the
-ENTIRE sweep — all G strains' conditional updates — inside one kernel
-invocation per position tile: the counts tile and mixture tile live in VMEM
-across the whole strain loop, so HBM traffic drops to one read of (n, mix)
-and one write of (mix, tau) per sweep, and the per-candidate
-log-likelihood reduction fuses with the categorical draw.
+The XLA path (sampler.tau_sweep_xla) runs a fori_loop over the G strains
+and, per strain, reads the counts and the [V,S,4] mixture and writes the
+mixture back: G round trips through device memory plus several kernel
+launches per strain. This kernel gives each program one block of positions
+and keeps that block's counts and mixture in registers across ALL G strain
+updates, then runs the strain-pair swap move (sampler.tau_swap_move) on the
+same registers before writing once. Device-memory traffic per sweep drops to
+one read of (n, mix, tau) and one write of (mix, tau).
 
-Layout: base-major flattening [V, 4*S] (lane index = a*S + s). The error-
-matrix contraction q[.,b] = sum_a rest[.,a] * eta[a,b] then becomes 16
-static lane-block multiply-adds — no in-kernel reshapes or gathers, which
-TPU tiling cannot do cheaply (pallas_guide.md 'Tiling Constraints').
+Layout: n and mix stay in the sampler's own [V,S,4] layout. Each base plane
+is a strided [BV, Sc] load (``ref[rows, samples, a]``), so no transpose or
+padding copy is made per sweep. Ragged V, a sample count that is not a
+power of two and G below its power of two are all handled with load/store
+masks: masked samples and rows load zero counts, which are
+likelihood-neutral (0 * log(floor) = 0), and are never stored. Samples are
+processed in chunks of ``s_chunk`` lanes so that S=96 costs three 32-lane
+chunks instead of one 128-lane block with a quarter masked off.
 
-Randomness: Gumbel noise is drawn OUTSIDE with the same
-``fold_in(key, g)`` scheme as the XLA path, so both paths sample identical
-categorical draws up to float-associativity of the candidate scores
-(equivalence tested in tests/test_pallas.py).
+Randomness: the Gumbel noise and the swap proposal are drawn OUTSIDE the
+kernel with the same ``fold_in`` streams as the XLA path, so both paths make
+identical categorical draws up to float summation order of the candidate
+scores (tests/test_pallas.py). The kernel does f32 multiply-adds and logs
+only: no tensor-core contraction, so no TF32 rounding.
 
 Reference parity: this replaces DESMAN's only native component, the
 ``sampletau`` Cython+GSL extension (SURVEY.md §2.1).
@@ -28,195 +34,174 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..utils import NBASES
+from ..utils import NBASES, safe_log
 
-
-# degree-5 minimax fit of ln(m) on m in [1,2); max abs err 2.2e-5 — far
-# below the O(1) Gumbel noise added to candidate scores (score error bound:
-# sum(n) * 2.2e-5 ~= 0.1 at coverage 50x64 samples)
-_LOG_POLY = (3.010262501e-02, -2.806325404e-01, 1.104808236e+00,
-             -2.420812563e+00, 3.498227901e+00, -1.931671542e+00)
-_LN2 = 0.6931471805599453
+_LOG_FLOOR = 1e-12
 
 
-def _fast_log(x):
-    """Polynomial log for x > 0: exponent via bitcast + deg-5 poly.
+def _next_pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
 
-    Measured on TPU v5e: ~14% SLOWER than the builtin log (630 vs 731
-    sweeps/s at the north-star config) — the hardware transcendental already
-    wins; kept as a documented negative result and for backends where it may
-    not (identical categorical draws either way, tested).
+
+def default_launch(S: int):
+    """(block_rows, num_warps, s_chunk) for a sample count S.
+
+    Chosen by the launch-shape sweep of ``chip_smoke.py --tune`` on an H100
+    at V=1e4/S=64/G=8 and V=1e5/S=96/G=16: 8 rows x 8 warps x 32-lane
+    sample chunks was fastest at the second shape and within 16 % of the
+    fastest at the first (PERF.md "Tau kernel launch shape").
     """
-    xi = pltpu.bitcast(x, jnp.int32)
-    e = jax.lax.shift_right_logical(xi, 23) - 127          # unbiased exponent
-    m = pltpu.bitcast(
-        jax.lax.bitwise_or(
-            jax.lax.bitwise_and(xi, jnp.int32(0x7FFFFF)), jnp.int32(127 << 23)
-        ),
-        jnp.float32,
-    )                                                       # mantissa in [1,2)
-    p = jnp.float32(_LOG_POLY[0])
-    for c in _LOG_POLY[1:]:
-        p = p * m + jnp.float32(c)
-    return e.astype(jnp.float32) * jnp.float32(_LN2) + p
+    s_chunk = min(_next_pow2(S), 32)
+    return 8, 8, s_chunk
 
 
-def _kernel(n_ref, mix_ref, tau_ref, gz_ref, add_ref, gtile_ref, eta_ref,
-            tau_out_ref, mix_out_ref, *, G: int, S: int, fast_log: bool):
-    """One full tau sweep for a [Vt, 4*S] tile.
+def require_gpu(interpret: bool) -> None:
+    """Refuse a compiled kernel call on a backend that cannot run it."""
+    if interpret:
+        return
+    backend = jax.default_backend()
+    if backend != "gpu":
+        raise ValueError(
+            f"the Pallas tau kernel is compiled for a GPU through Triton; "
+            f"JAX's backend here is {backend!r}. Use --kernel xla, or pass "
+            "interpret=True to run the kernel in the Pallas interpreter.")
 
-    n_ref, mix_ref: [Vt, 4*S] base-major counts / mixture tile.
-    tau_ref:  [Vt, G] int32 current calls.
-    gz_ref:   [Vt, G*4] Gumbel noise (already scaled by temperature).
-    add_ref:  [G, 4*4*S] candidate add-terms, add[g, c*4S + b*S + s]
-              = gamma[s,g] * eta[c,b].
-    gtile_ref:[G, 4*S] gamma tiled over the base axis, gtile[g, a*S+s]
-              = gamma[s,g].
-    eta_ref:  [4, 4] error matrix (row a = true base).
-    Outputs: updated tau and mixture tiles.
+
+def _kernel(n_ref, mix_ref, tau_ref, gz_ref, gam_ref, eta_ref, *refs,
+            V: int, S: int, G: int, BV: int, Sc: int, Gp: int, swap: bool):
+    """One full tau sweep (+ optional swap move) for rows [v0, v0+BV).
+
+    n_ref, mix_ref: [V, S, 4]; tau_ref: [V, G] int32; gz_ref: [V, 4G]
+    Gumbel noise (column g*4+c, already scaled by temperature); gam_ref:
+    [S, G]; eta_ref: [4, 4]. With ``swap``: sel_ref [2] int32 (strains g,
+    h) and logu_ref [V] (log-uniform thresholds pre-divided by beta).
+    Outputs tau [V, G] and mix [V, S, 4] (aliased to the inputs).
     """
-    n = n_ref[:]                                   # [Vt, 4S]
-    mix = mix_ref[:]
-    Vt = n.shape[0]
-    lane_base = jax.lax.broadcasted_iota(jnp.int32, (Vt, NBASES * S), 1) // S
+    if swap:
+        sel_ref, logu_ref, tau_out_ref, mix_out_ref = refs
+    else:
+        tau_out_ref, mix_out_ref = refs
+    K = -(-S // Sc)                                   # sample chunks
+    pid = pl.program_id(0)
+    v0 = pid * BV
+    # chunk starts are traced so that the masked tail chunk (S % Sc != 0)
+    # is not refused by the static out-of-bounds check on slices
+    s0 = [pid * 0 + k * Sc for k in range(K)]
+    rows = v0 + jnp.arange(BV)
+    row_ok = rows < V
+    lane = jnp.arange(Sc)
+    s_ok = [k * Sc + lane < S for k in range(K)]
+    m2 = [row_ok[:, None] & s_ok[k][None, :] for k in range(K)]
 
-    new_tau_cols = []
-    for g in range(G):
-        tau_g = tau_ref[:, g]                      # [Vt] int32
-        gam_g = gtile_ref[g, :][None, :]           # [1, 4S]
-        oh = (lane_base == tau_g[:, None]).astype(jnp.float32)
-        rest = mix - gam_g * oh                    # [Vt, 4S]
+    def plane(ref, a, k):
+        return plgpu.load(ref.at[pl.ds(v0, BV), pl.ds(s0[k], Sc), a],
+                          mask=m2[k], other=0.0)
 
-        # q[., b*S+s] = sum_a rest[., a*S+s] * eta[a, b]
-        q_blocks = []
-        for b in range(NBASES):
-            acc = rest[:, 0:S] * eta_ref[0, b]
-            for a in range(1, NBASES):
-                acc = acc + rest[:, a * S:(a + 1) * S] * eta_ref[a, b]
-            q_blocks.append(acc)
-        q = jnp.concatenate(q_blocks, axis=1)      # [Vt, 4S]
+    def gamma_col(g, k):                               # [1, Sc]
+        return plgpu.load(gam_ref.at[pl.ds(s0[k], Sc), g], mask=s_ok[k],
+                          other=0.0)[None, :]
 
-        # candidate scores: cand[v,c] = sum_l n * log(q + add[g,c,:])
-        log_fn = _fast_log if fast_log else jnp.log
-        cand_cols = []
+    n = [[plane(n_ref, a, k) for k in range(K)] for a in range(NBASES)]
+    mix0 = tuple(plane(mix_ref, a, k)
+                 for a in range(NBASES) for k in range(K))
+    cols = jnp.arange(Gp)
+    tau_mask = row_ok[:, None] & (cols[None, :] < G)
+    tau0 = plgpu.load(tau_ref.at[pl.ds(v0, BV), pl.ds(0, Gp)], mask=tau_mask,
+                      other=0)
+    eta = [[eta_ref[a, b] for b in range(NBASES)] for a in range(NBASES)]
+
+    def column(tau, g):                                # tau[:, g] -> [BV]
+        return jnp.sum(jnp.where(cols[None, :] == g, tau, 0), axis=1)
+
+    def logf(x):
+        return jnp.log(jnp.maximum(x, _LOG_FLOOR))
+
+    def strain(g, carry):
+        mix_flat, tau = carry
+        mix = [list(mix_flat[a * K:(a + 1) * K]) for a in range(NBASES)]
+        tg = column(tau, g)[:, None]
+        gam = [gamma_col(g, k) for k in range(K)]
+        # remove strain g: rest[a] = mix[a] - gamma[s,g] * [tau[v,g] == a]
+        rest = [[mix[a][k] - jnp.where(tg == a, gam[k], 0.0)
+                 for k in range(K)] for a in range(NBASES)]
+        # candidate c: sum_{s,b} n[b] * log(q[b] + gamma[s,g] eta[c,b]),
+        # q[b] = sum_a rest[a] eta[a,b]
+        cand = [0.0] * NBASES
+        for k in range(K):
+            q = [rest[0][k] * eta[0][b] + rest[1][k] * eta[1][b]
+                 + rest[2][k] * eta[2][b] + rest[3][k] * eta[3][b]
+                 for b in range(NBASES)]
+            for c in range(NBASES):
+                t = n[0][k] * logf(q[0] + gam[k] * eta[c][0])
+                for b in range(1, NBASES):
+                    t = t + n[b][k] * logf(q[b] + gam[k] * eta[c][b])
+                cand[c] = cand[c] + jnp.sum(t, axis=1)
+        # Gumbel-argmax (first maximum wins, as jnp.argmax)
+        best = None
+        new = jnp.zeros((BV,), jnp.int32)
         for c in range(NBASES):
-            add_c = add_ref[g, c * NBASES * S:(c + 1) * NBASES * S][None, :]
-            term = n * log_fn(jnp.maximum(q + add_c, 1e-12))
-            cand_cols.append(jnp.sum(term, axis=1, keepdims=True))
-        cand = jnp.concatenate(cand_cols, axis=1)  # [Vt, 4]
+            gz = plgpu.load(gz_ref.at[pl.ds(v0, BV), g * NBASES + c],
+                            mask=row_ok, other=0.0)
+            score = cand[c] + gz
+            if best is None:
+                best = score
+            else:
+                better = score > best
+                best = jnp.where(better, score, best)
+                new = jnp.where(better, c, new)
+        new2 = new[:, None]
+        mix = tuple(rest[a][k] + jnp.where(new2 == a, gam[k], 0.0)
+                    for a in range(NBASES) for k in range(K))
+        tau = jnp.where(cols[None, :] == g, new2, tau)
+        return mix, tau
 
-        scores = cand + gz_ref[:, g * NBASES:(g + 1) * NBASES]
-        new_g = jnp.argmax(scores, axis=1).astype(jnp.int32)   # [Vt]
+    mix_flat, tau = jax.lax.fori_loop(0, G, strain, (mix0, tau0))
+    mix = [list(mix_flat[a * K:(a + 1) * K]) for a in range(NBASES)]
 
-        oh_new = (lane_base == new_g[:, None]).astype(jnp.float32)
-        mix = rest + gam_g * oh_new
-        new_tau_cols.append(new_g[:, None])
+    if swap:
+        # strain-pair swap (sampler.tau_swap_move): mix' = mix + dgam[s] *
+        # d[v,a], so p' = p + dgam[s] * w[v,b] with w = d @ eta
+        sg = sel_ref[0]
+        sh = sel_ref[1]
+        tg = column(tau, sg)
+        th = column(tau, sh)
+        d = [((th == a).astype(jnp.float32)
+              - (tg == a).astype(jnp.float32))[:, None]
+             for a in range(NBASES)]
+        w = [d[0] * eta[0][b] + d[1] * eta[1][b] + d[2] * eta[2][b]
+             + d[3] * eta[3][b] for b in range(NBASES)]
+        dgam = [gamma_col(sg, k) - gamma_col(sh, k) for k in range(K)]
+        dll = 0.0
+        for k in range(K):
+            t = None
+            for b in range(NBASES):
+                p = (mix[0][k] * eta[0][b] + mix[1][k] * eta[1][b]
+                     + mix[2][k] * eta[2][b] + mix[3][k] * eta[3][b])
+                tb = n[b][k] * (logf(p + dgam[k] * w[b]) - logf(p))
+                t = tb if t is None else t + tb
+            dll = dll + jnp.sum(t, axis=1)
+        logu = plgpu.load(logu_ref.at[pl.ds(v0, BV)], mask=row_ok,
+                          other=jnp.inf)
+        acc = (logu < dll)[:, None]
+        mix = [[mix[a][k] + jnp.where(acc, dgam[k] * d[a], 0.0)
+                for k in range(K)] for a in range(NBASES)]
+        tau = jnp.where(acc & (cols[None, :] == sg), th[:, None],
+                        jnp.where(acc & (cols[None, :] == sh), tg[:, None],
+                                  tau))
 
-    tau_out_ref[:] = jnp.concatenate(new_tau_cols, axis=1)
-    mix_out_ref[:] = mix
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _tile_rows(S: int) -> int:
-    """Position-tile height under a ~6 MB VMEM working-set budget.
-
-    The kernel keeps ~5 live [Vt, 4S] f32 arrays (n, mix/rest, q, one
-    candidate term, one-hot); 512 rows fits comfortably up to S=256, larger
-    S shrinks the tile (v5e VMEM is ~16 MB/core, pallas_guide.md).
-    """
-    budget_rows = (6 * 1024 * 1024) // (5 * NBASES * S * 4)
-    vt = min(512, budget_rows)
-    return max(8, vt - vt % 8)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "fast_log"))
-def _sweep_bmajor(n_bm, mix_bm, tau, gz, gamma, eta, interpret=False,
-                  fast_log=False):
-    """Run the kernel on base-major [V,4S] arrays. V must be tile-aligned."""
-    V, lanes = n_bm.shape
-    G = tau.shape[1]
-    S = lanes // NBASES
-    Vt = min(V, _tile_rows(S))
-    assert V % Vt == 0
-
-    # host-side precomputed tables (tiny): add[g, c, b, s], gtile[g, a, s]
-    add = jnp.einsum("sg,cb->gcbs", gamma, eta).reshape(G, NBASES * NBASES * S)
-    gtile = jnp.broadcast_to(
-        gamma.T[:, None, :], (G, NBASES, S)
-    ).reshape(G, NBASES * S)
-
-    kernel = functools.partial(_kernel, G=G, S=S, fast_log=fast_log)
-    grid = (V // Vt,)
-    tile = lambda r: pl.BlockSpec((Vt, r), lambda i: (i, 0),
-                                  memory_space=pltpu.VMEM)
-    full = lambda shape: pl.BlockSpec(shape, lambda i: tuple(0 for _ in shape),
-                                      memory_space=pltpu.VMEM)
-
-    tau_out, mix_out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            tile(lanes),                    # n
-            tile(lanes),                    # mix
-            tile(G),                        # tau
-            tile(G * NBASES),               # gz
-            full((G, NBASES * NBASES * S)),  # add
-            full((G, NBASES * S)),          # gtile
-            full((NBASES, NBASES)),         # eta
-        ],
-        out_specs=[tile(G), tile(lanes)],
-        out_shape=[
-            jax.ShapeDtypeStruct((V, G), jnp.int32),
-            jax.ShapeDtypeStruct((V, lanes), jnp.float32),
-        ],
-        interpret=interpret,
-    )(n_bm, mix_bm, tau, gz, add, gtile, eta)
-    return tau_out, mix_out
-
-
-def to_bmajor(x):
-    """[V,S,4] -> [V, 4*S] base-major (lane = a*S + s)."""
-    V, S, B = x.shape
-    return jnp.transpose(x, (0, 2, 1)).reshape(V, B * S)
-
-
-def from_bmajor(x, S):
-    V, lanes = x.shape
-    return jnp.transpose(x.reshape(V, NBASES, S), (0, 2, 1))
-
-
-def tau_sweep_pallas(n, tau, mix, gamma, eta, key, temp=1.0, interpret=False,
-                     fast_log=False, swap_key=None, swap_beta=1.0):
-    """Drop-in replacement for sampler.tau_sweep_xla (same signature/PRNG).
-
-    Handles layout conversion and position-padding; for best performance V
-    should be a multiple of 512 (the wrapper pads with zero-coverage rows,
-    which are likelihood-neutral).
-
-    swap_key (optional): run the strain-pair swap move (sampler.
-    tau_swap_move semantics, ops/swap_pallas kernel) as an epilogue on the
-    base-major tiles before converting back — saves the XLA swap's extra
-    [V,S,4] HBM round-trips (~0.3 ms/sweep at the north-star config).
-    make_sweep_fn uses this via the ``handles_swap`` attribute.
-    """
-    G = tau.shape[1]
-    gz = draw_gumbel(key, n.shape[0], G, temp)
-    return tau_sweep_pallas_from_gz(n, tau, mix, gamma, eta, gz,
-                                    interpret=interpret, fast_log=fast_log,
-                                    swap_key=swap_key, swap_beta=swap_beta)
-
-
-tau_sweep_pallas.handles_swap = True
+    plgpu.store(tau_out_ref.at[pl.ds(v0, BV), pl.ds(0, Gp)], tau,
+                mask=tau_mask)
+    for a in range(NBASES):
+        for k in range(K):
+            plgpu.store(mix_out_ref.at[pl.ds(v0, BV), pl.ds(s0[k], Sc), a],
+                        mix[a][k], mask=m2[k])
 
 
 def draw_gumbel(key, V: int, G: int, temp=1.0):
-    """The sweep's categorical noise [V, G*4] — same fold_in scheme as the
-    XLA path. Split out so sharded callers can draw it globally (one
+    """The sweep's categorical noise [V, G*4] — the same fold_in scheme as
+    the XLA path. Split out so sharded callers can draw it globally (one
     partitionable-PRNG stream over the full V) before shard_mapping the
     kernel (parallel/sharded.py)."""
     return jnp.stack(
@@ -225,54 +210,79 @@ def draw_gumbel(key, V: int, G: int, temp=1.0):
     ).reshape(V, G * NBASES) * temp
 
 
-def tau_sweep_pallas_from_gz(n, tau, mix, gamma, eta, gz, interpret=False,
-                             fast_log=False, swap_key=None, swap_beta=1.0,
-                             swap_proposal=None):
-    """Kernel invocation with pre-drawn Gumbel noise (layout + padding).
+def draw_swap_proposal(key, V: int, G: int):
+    """(g, h, logu[V]) with the exact stream sampler.tau_swap_move uses.
 
-    swap_proposal: optional pre-drawn (g, h, logu[V]) swap move — sharded
-    callers draw it globally outside shard_map (parallel/sharded.py), the
-    same way gz is pre-drawn. Mutually exclusive with swap_key.
+    G == 1 has no strain pair to swap; return a never-accept proposal
+    (+inf thresholds, g == h) so direct callers stay safe.
     """
+    if G < 2:
+        return jnp.int32(0), jnp.int32(0), jnp.full((V,), jnp.inf, jnp.float32)
+    k_pair, k_u = jax.random.split(key)
+    g = jax.random.randint(k_pair, (), 0, G)
+    off = jax.random.randint(jax.random.fold_in(k_pair, 1), (), 1, G)
+    h = (g + off) % G
+    logu = safe_log(jax.random.uniform(k_u, (V,)))
+    return g, h, logu
+
+
+def tau_sweep_pallas_from_gz(n, tau, mix, gamma, eta, gz, *, interpret=False,
+                             swap_proposal=None, swap_beta=1.0,
+                             block_rows=None, num_warps=None, s_chunk=None):
+    """Kernel invocation with pre-drawn Gumbel noise ``gz`` [V, 4G].
+
+    swap_proposal: optional pre-drawn (g, h, logu[V]) swap move, applied as
+    the kernel's epilogue. Rows whose logu is +inf never accept.
+    """
+    require_gpu(interpret)
     V, S, _ = n.shape
     G = tau.shape[1]
+    rows_d, warps_d, chunk_d = default_launch(S)
+    BV = block_rows or rows_d
+    Sc = s_chunk or chunk_d
+    swap = swap_proposal is not None
+    kernel = functools.partial(_kernel, V=V, S=S, G=G, BV=BV, Sc=Sc,
+                               Gp=_next_pow2(G), swap=swap)
+    args = [n.astype(jnp.float32), mix.astype(jnp.float32),
+            tau.astype(jnp.int32), gz.astype(jnp.float32),
+            gamma.astype(jnp.float32), eta.astype(jnp.float32)]
+    if swap:
+        g_s, h_s, logu = swap_proposal
+        args += [jnp.stack([g_s, h_s]).astype(jnp.int32),
+                 (logu / swap_beta).astype(jnp.float32)]
+    tau_out, mix_out = pl.pallas_call(
+        kernel,
+        grid=(pl.cdiv(V, BV),),
+        out_shape=[jax.ShapeDtypeStruct((V, G), jnp.int32),
+                   jax.ShapeDtypeStruct((V, S, NBASES), jnp.float32)],
+        input_output_aliases={2: 0, 1: 1},
+        compiler_params=plgpu.CompilerParams(
+            num_warps=num_warps or warps_d, num_stages=1),
+        interpret=interpret,
+        name="tau_sweep",
+    )(*args)
+    return tau_out, mix_out
 
-    Vt = min(_round_up(V, 8), _tile_rows(S))
-    Vp = _round_up(V, Vt)
-    pad = Vp - V
 
-    n_bm = to_bmajor(n.astype(jnp.float32))
-    mix_bm = to_bmajor(mix)
-    if pad:
-        n_bm = jnp.pad(n_bm, ((0, pad), (0, 0)))
-        # pad mix with a valid simplex row (all strains base A) to keep the
-        # kernel's logs finite; the rows are stripped below
-        mix_pad = jnp.zeros((pad, NBASES * S), jnp.float32).at[:, :S].set(1.0)
-        mix_bm = jnp.concatenate([mix_bm, mix_pad], axis=0)
-        tau = jnp.pad(tau, ((0, pad), (0, 0)))
-        gz = jnp.pad(gz, ((0, pad), (0, 0)))
+def tau_sweep_pallas(n, tau, mix, gamma, eta, key, temp=1.0, *,
+                     interpret=False, swap_key=None, swap_beta=1.0,
+                     block_rows=None, num_warps=None, s_chunk=None):
+    """Drop-in replacement for sampler.tau_sweep_xla (same signature/PRNG).
 
-    tau_out, mix_out = _sweep_bmajor(
-        n_bm, mix_bm, tau, gz, gamma.astype(jnp.float32),
-        eta.astype(jnp.float32), interpret=interpret, fast_log=fast_log,
-    )
-    if swap_key is not None or swap_proposal is not None:
-        from .swap_pallas import draw_swap_proposal, swap_bmajor
+    swap_key (optional): run the strain-pair swap move (sampler.
+    tau_swap_move semantics, same proposal stream) as the kernel's epilogue.
+    make_sweep_fn uses this via the ``handles_swap`` attribute.
+    ``interpret=True`` runs the kernel in the Pallas interpreter (CPU tests);
+    otherwise the backend must be a GPU.
+    """
+    V, G = tau.shape
+    gz = draw_gumbel(key, V, G, temp)
+    swap_proposal = (None if swap_key is None
+                     else draw_swap_proposal(swap_key, V, G))
+    return tau_sweep_pallas_from_gz(
+        n, tau, mix, gamma, eta, gz, interpret=interpret,
+        swap_proposal=swap_proposal, swap_beta=swap_beta,
+        block_rows=block_rows, num_warps=num_warps, s_chunk=s_chunk)
 
-        if swap_proposal is not None:
-            g_s, h_s, logu = swap_proposal
-        else:
-            # proposal drawn at the UNPADDED V (stream parity with the XLA
-            # path); padded rows get +inf thresholds so they never accept
-            g_s, h_s, logu = draw_swap_proposal(swap_key, V, G)
-        if pad:
-            logu = jnp.pad(logu, (0, pad), constant_values=jnp.inf)
-        tau_out, mix_out = swap_bmajor(
-            n_bm, tau_out, mix_out, gamma.astype(jnp.float32),
-            eta.astype(jnp.float32), g_s, h_s, logu, beta=swap_beta,
-            interpret=interpret,
-        )
-    if pad:
-        tau_out = tau_out[:V]
-        mix_out = mix_out[:V]
-    return tau_out, from_bmajor(mix_out, S)
+
+tau_sweep_pallas.handles_swap = True

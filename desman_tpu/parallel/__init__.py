@@ -1,8 +1,8 @@
-"""Multi-device execution: chain x position sharding over a TPU mesh."""
+"""Multi-device execution: chain x position sharding over a device mesh."""
 
 from .mesh import make_mesh, shard_counts, shard_keys
 from .sharded import (
-    make_pallas_sweep_sharded, make_topk_sweep_sharded, run_chain_pt_sharded,
+    make_pallas_sweep_sharded, run_chain_pt_sharded,
     run_chain_pt_sharded_checkpointed, run_chain_sharded_checkpointed,
     run_chains_sharded, run_chains_sharded_checkpointed,
 )
@@ -12,5 +12,4 @@ __all__ = [
     "run_chain_pt_sharded", "run_chain_pt_sharded_checkpointed",
     "run_chain_sharded_checkpointed",
     "run_chains_sharded_checkpointed", "make_pallas_sweep_sharded",
-    "make_topk_sweep_sharded",
 ]

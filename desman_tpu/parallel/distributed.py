@@ -4,8 +4,8 @@ The reference has no distributed backend — replicates are OS processes.
 Here multi-host runs use ``jax.distributed``: every host calls
 ``maybe_initialize()`` (no-op single-host / already-initialized), builds the
 same global (chain, data) mesh over all processes' devices, and executes the
-identical program; XLA routes the per-sweep psums over ICI within a slice
-and DCN across hosts. The collective payload is a few KB of gamma/eta
+identical program; XLA routes the per-sweep psums over NVLink between the
+GPUs of a host and the network across hosts. The collective payload is a few KB of gamma/eta
 sufficient statistics per sweep (SURVEY.md §5), so scaling efficiency is
 expected near 1 — measured by bench.py's scaling mode when multi-host
 hardware is available.
@@ -26,8 +26,9 @@ def maybe_initialize(
     """Initialize jax.distributed when a multi-host env is configured.
 
     Honors explicit args first, then the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or a TPU
-    pod runtime that auto-configures). Returns True when running multi-host.
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or a
+    cluster runtime that auto-configures). Returns True when running
+    multi-host.
     """
     # Don't probe jax.process_count() here: it initializes the XLA backend,
     # after which jax.distributed.initialize() refuses to run. Check the
@@ -53,7 +54,7 @@ def maybe_initialize(
         kwargs["process_id"] = int(p)
     # CPU multi-process needs a cross-host collectives backend; XLA's default
     # ("none") would deadlock the first psum. Gloo ships with jaxlib and is
-    # what tests/test_multiprocess.py exercises; TPU pods ignore this knob.
+    # what tests/test_multiprocess.py exercises; GPU runs ignore this knob.
     if os.environ.get("JAX_PLATFORMS", "") == "cpu" or (
             jax.config.jax_platforms == "cpu"):
         try:

@@ -11,8 +11,9 @@ The scaling design (SURVEY.md §2.2): two mesh axes —
   over V (GSPMD inserts the collectives; nothing hand-written).
 
 Multi-host: the same code runs under ``jax.distributed.initialize`` — the
-mesh spans all processes' devices and the psums ride ICI within a slice,
-DCN across hosts. The per-sweep collective payload is a few KB (gamma/eta
+mesh spans all processes' devices and the psums ride NVLink between the
+GPUs of a host (all to all, so no placement rule applies) and the network
+across hosts. The per-sweep collective payload is a few KB (gamma/eta
 stats), so scaling efficiency stays near 1 (SURVEY.md §5).
 """
 from __future__ import annotations
@@ -36,7 +37,8 @@ def make_mesh(
 
     Default split: all devices on the data (position) axis — positions are
     the scaling dimension (SURVEY.md §5 'long-context' analogue); pass
-    n_chain > 1 to dedicate devices to replicate parallelism.
+    n_chain > 1 to dedicate devices to replicate parallelism. A single
+    process given both sizes uses its first n_chain * n_data devices.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)
@@ -46,6 +48,9 @@ def make_mesh(
         n_chain = n // n_data
     elif n_data is None:
         n_data = n // n_chain
+    elif n_chain * n_data < n and jax.process_count() == 1:
+        devices = devices[:n_chain * n_data]
+        n = len(devices)
     if n_chain * n_data != n:
         raise ValueError(f"mesh {n_chain}x{n_data} != {n} devices")
     arr = np.array(devices).reshape(n_chain, n_data)

@@ -11,7 +11,7 @@ resumes on another (tested across mesh shapes and across real process
 boundaries in tests/test_sharding.py and tests/test_multiprocess.py).
 
 Layout of a checkpoint directory (assumed on a filesystem all hosts share,
-as TPU-pod checkpoint storage is):
+as multi-host job checkpoint storage is):
 
     p{pid}_it{it}.npz   per-process shard payload; member names are
                         "{field}@{row_offset}" (fields are sharded over the

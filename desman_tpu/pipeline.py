@@ -14,7 +14,7 @@ Config keys (all optional except counts):
     counts: counts.csv
     output_dir: desman_pipeline_out
     filter: {min_coverage: 5.0, q_cutoff: 0.05}
-    grid: {g_min: 1, g_max: 8, seeds: [0,1,2], iterations: 250, kernel: pallas}
+    grid: {g_min: 1, g_max: 8, seeds: [0,1,2], iterations: 250, kernel: xla}
     selection: {dev_cutoff: 0.02, unc_cutoff: 0.1}
     genes: {coverage_csv: gene_cov.csv, max_copy: 1}   # optional stage
 """
@@ -38,8 +38,6 @@ def load_config(path: str) -> dict:
 
 def run_pipeline(config: dict) -> dict:
     """Execute the pipeline; returns a summary dict (also written to disk)."""
-    import pandas as pd
-
     from . import io
     from .filter import FilterConfig, filter_variants
     from .model_selection import fit_grid, resolve_nhap
@@ -56,11 +54,10 @@ def run_pipeline(config: dict) -> dict:
     sel = data.select(np.flatnonzero(fres.selected))
     io.write_counts_csv(os.path.join(outdir, "sel_var.csv"), sel)
     io.write_eta_csv(os.path.join(outdir, "tran_df.csv"), fres.eta)
-    pos = {"Contig": data.contigs, "Position": data.positions}
-    pd.DataFrame({**pos, "p": fres.pvalues}).to_csv(
-        os.path.join(outdir, "p_df.csv"), index=False)
-    pd.DataFrame({**pos, "q": fres.qvalues}).to_csv(
-        os.path.join(outdir, "q_df.csv"), index=False)
+    io.write_position_csv(os.path.join(outdir, "p_df.csv"), data.contigs,
+                          data.positions, "p", fres.pvalues)
+    io.write_position_csv(os.path.join(outdir, "q_df.csv"), data.contigs,
+                          data.positions, "q", fres.qvalues)
 
     # ---- grid ----
     grid = config.get("grid", {})
@@ -79,8 +76,8 @@ def run_pipeline(config: dict) -> dict:
         ess_target=float(grid.get("auto_samples", 0.0)),
         max_samples=int(grid.get("auto_max_samples", 2000)),
     )
-    pd.DataFrame([r.__dict__ for r in records]).to_csv(
-        os.path.join(outdir, "collated_fits.csv"), index=False)
+    io.write_records_csv(os.path.join(outdir, "collated_fits.csv"),
+                         [r.__dict__ for r in records])
 
     # ---- selection ----
     scfg = config.get("selection", {})
@@ -105,6 +102,8 @@ def run_pipeline(config: dict) -> dict:
     # ---- genes (optional) ----
     genes = config.get("genes")
     if genes:
+        import pandas as pd
+
         from .geneassign import (
             GeneAssignConfig, assign_genes, sample_total_coverage,
             strain_coverage,

@@ -1,6 +1,6 @@
 """End-to-end run driver: counts -> sampler -> DESMAN-format output dir.
 
-The TPU-native equivalent of the reference's ``bin/desman`` main path
+The JAX equivalent of the reference's ``bin/desman`` main path
 (SURVEY.md §3.1): load the counts CSV, optionally subsample positions (-r)
 and apply min coverage (-m), run the Gibbs sampler (optionally with a fixed
 eta from the filter's tran_df, -e), and write the output directory the
@@ -63,28 +63,23 @@ class RunConfig:
 def bind_kernel(tau_sweep, counts, mesh=None):
     """Resolve a CLI kernel selection against the post-prepare counts/mesh.
 
-    - ``pallas_topk`` factories (``needs_counts``) bind their static top-2
-      layout here — per position shard under a mesh (the r4 "--kernel
-      pallas_topk --mesh" exclusion, closed by the pre-split layout in
-      parallel.make_topk_sweep_sharded).
-    - the plain pallas kernel gets the shard_map wrapper under a mesh: a
-      raw pallas_call cannot be GSPMD-partitioned, so passing it through
-      unwrapped would crash in lowering.
+    The pallas kernel (or a functools.partial of it) gets the shard_map
+    wrapper under a mesh: a raw pallas_call cannot be GSPMD-partitioned,
+    so passing it through unwrapped would crash in lowering. A partial's
+    ``interpret`` flag carries over to the wrapper.
     """
     if tau_sweep is None:
         return None
-    if getattr(tau_sweep, "resident", False):
-        return tau_sweep  # routed to resident.run_chain(s)_resident
-    if getattr(tau_sweep, "needs_counts", False):
-        return (tau_sweep(counts, mesh=mesh) if mesh is not None
-                else tau_sweep(counts))
     if mesh is not None:
         from .ops import tau_sweep_pallas
 
-        if tau_sweep is tau_sweep_pallas:
+        if getattr(tau_sweep, "func", tau_sweep) is tau_sweep_pallas:
             from .parallel import make_pallas_sweep_sharded
 
-            return make_pallas_sweep_sharded(mesh, true_V=counts.shape[0])
+            interpret = getattr(tau_sweep, "keywords", {}).get(
+                "interpret", False)
+            return make_pallas_sweep_sharded(mesh, interpret=interpret,
+                                             true_V=counts.shape[0])
     return tau_sweep
 
 
@@ -173,21 +168,7 @@ def run(data: io.CountsData, rc: RunConfig, tau_sweep=None) -> SamplerResult:
         ess_target=rc.auto_samples, max_samples=rc.auto_max_samples,
     )
     with device_trace(rc.profile_dir):
-        if getattr(tau_sweep, "resident", False):
-            # run-mode fields the resident path cannot honor must not be
-            # silently dropped (API callers bypass the CLI guard)
-            if auto or rc.pt_replicas >= 2 or rc.checkpoint_path:
-                raise ValueError(
-                    "the resident kernel supports plain runs only — "
-                    "auto_burn/auto_samples/pt/checkpoint need the "
-                    "composable 'pallas' kernel")
-            from .resident import run_chain_resident
-
-            res = run_chain_resident(
-                n, cfg, jax.random.PRNGKey(rc.seed), eta_init=eta_init,
-                tau_init=tau_init,
-            )
-        elif auto and rc.pt_replicas >= 2:
+        if auto and rc.pt_replicas >= 2:
             from dataclasses import replace as _replace
 
             from .converge import run_chain_pt_auto
@@ -384,18 +365,7 @@ def run_multi(
     keys = jnp.stack([jax.random.PRNGKey(s) for s in seeds])
     sweep_kw = {"tau_sweep": tau_sweep or tau_sweep_xla}
     t0 = time.time()
-    if getattr(tau_sweep, "resident", False):
-        if (rc.auto_burn or rc.auto_samples > 0 or rc.pt_replicas >= 2
-                or rc.checkpoint_path or mesh is not None):
-            raise ValueError(
-                "the resident kernel supports plain/--chains runs only — "
-                "auto_burn/auto_samples/pt/checkpoint/mesh need the "
-                "composable 'pallas' kernel")
-        from .resident import run_chains_resident
-
-        res = run_chains_resident(n, cfg, seeds, eta_init=eta_init,
-                                  tau_init=tau_init)
-    elif rc.auto_burn or rc.auto_samples > 0:
+    if rc.auto_burn or rc.auto_samples > 0:
         from .converge import run_chains_auto
 
         res, burn_used, samples_used = run_chains_auto(

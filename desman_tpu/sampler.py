@@ -1,6 +1,6 @@
 """The tau/gamma/eta Gibbs sampler as a pure-functional jitted scan.
 
-TPU-first redesign of the reference's ``desman/HaploSNP_Sampler.py`` +
+Accelerator-first redesign of the reference's ``desman/HaploSNP_Sampler.py`` +
 ``desman/sampletau.pyx`` Cython/GSL hot loop (SURVEY.md §2, §3.1). Instead of
 a Python object mutating arrays in place with a GSL RNG stream, the sampler is
 ``state -> state``: one sweep =
@@ -76,8 +76,8 @@ class SamplerConfig:
     eta_prior_off: float = 1.0
     fix_eta: bool = False
     # "joint" (1 blocked MH on the whole 4x4, default: one likelihood pass /
-    # one psum per sweep — 0.26 ms/sweep cheaper on chip and the preferred
-    # mesh mode, docs/SCALING.md) | "rows" (4 sequential per-row MH — the
+    # one psum per sweep instead of four, the preferred mesh mode,
+    # docs/SCALING.md) | "rows" (4 sequential per-row MH — the
     # reference's update shape, SURVEY.md §0.1 [M]; same stationary dist.)
     eta_update: str = "joint"
     fix_gamma: bool = False       # freeze abundances (known mixtures / tests)
@@ -399,8 +399,8 @@ def eta_step_joint(cfg: SamplerConfig, n, mix, eta, loglik, key, kappa=None,
 # --------------------------------------------------------------------------
 
 def _handles_swap(fn) -> bool:
-    """True when the tau_sweep fn runs the swap move itself (pallas
-    epilogue) — looks through functools.partial (.func) and
+    """True when the tau_sweep fn runs the swap move itself (the pallas
+    kernel's epilogue) — looks through functools.partial (.func) and
     functools.wraps (.__wrapped__) wrappers, bounded against cycles."""
     for _ in range(16):
         if fn is None:
@@ -448,9 +448,10 @@ def make_sweep_fn(cfg: SamplerConfig, tau_sweep=tau_sweep_xla):
                     temp = 1.0
             do_swap = cfg.swap_moves and cfg.G > 1
             if do_swap and _handles_swap(tau_sweep):
-                # fused path: the swap runs as a kernel epilogue on the
-                # base-major tiles (ops/swap_pallas) — same proposal stream
-                # and MH rule as tau_swap_move, minus its HBM round-trips
+                # fused path: the swap runs as the kernel's epilogue on its
+                # register-resident block (ops/tau_pallas) — same proposal
+                # stream and MH rule as tau_swap_move, minus its
+                # device-memory round trips
                 tau, mix = tau_sweep(
                     n, state.tau, state.mix, state.gamma, state.eta, k_tau,
                     temp=temp, swap_key=jax.random.fold_in(k_tau, 12345),

@@ -49,8 +49,7 @@ def generate(
     sees in the reference pipeline).
     max_alleles: distinct bases per position (default 4 = unconstrained).
     ``max_alleles=2`` gives biallelic positions — the realistic regime for
-    point mutations on a strain phylogeny, where the top-2-compressed tau
-    kernel (ops/tau_topk.py) applies.
+    point mutations on a strain phylogeny.
     """
     rng = np.random.default_rng(seed)
     if max_alleles < NBASES:

@@ -11,7 +11,8 @@ the full in-scope pipeline:
     -> resolvenhap model selection -> validateSNP vs truth
     -> GeneAssign accessory-genome recovery
 
-Run:  python examples/complete_example.py [--quick]
+Run:  python examples/complete_example.py [--quick]   (JAX's default
+device: the GPU where there is one; JAX_PLATFORMS=cpu for the CPU)
 """
 import argparse
 import os
@@ -19,7 +20,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np
 

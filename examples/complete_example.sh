@@ -11,7 +11,8 @@
 # quickstart scale (G=1..6 x 2 seeds, 250 sweeps).
 set -euo pipefail
 cd "$(dirname "$0")/.."
-export JAX_PLATFORMS="${JAX_PLATFORMS_OVERRIDE:-cpu}"
+# JAX's default device (the GPU where there is one; JAX_PLATFORMS=cpu for the
+# CPU). The desman runs below are sequential: one JAX process per card.
 
 OUT="${1:-cli_example_out}"
 GMAX=6; SEEDS="0 1"; ITERS=250

@@ -1,11 +1,12 @@
 """Multi-process jax.distributed worker (driven by tests/test_multiprocess.py).
 
-Each worker is one jax process (the multi-controller SPMD model a TPU pod
-uses — SURVEY.md §2.2 'Distributed comm backend'): it initializes
+Each worker is one jax process (the multi-controller SPMD model a
+multi-host GPU job uses — SURVEY.md §2.2 'Distributed comm backend'): it
+initializes
 jax.distributed against a localhost coordinator, contributes its
 --local_devices virtual CPU devices to the global mesh, and executes the
 same program as every other process. Cross-process psums ride gloo (the CPU
-stand-in for ICI/DCN). Process 0 writes the gathered results to --out.
+stand-in for NVLink/NCCL). Process 0 writes the gathered results to --out.
 
 Modes:
   chains       run_chains_sharded on a (chain, data) mesh

@@ -2,7 +2,7 @@
 
 Round 1 validated sharding only on a single-process virtual mesh; these
 tests spawn REAL separate jax processes (the multi-controller model of a
-TPU pod, with gloo standing in for ICI/DCN on CPU) and assert the sharded
+multi-host GPU job, with gloo standing in for NCCL on CPU) and assert the sharded
 sampler produces the same trajectories as the in-process single-controller
 run — the mesh-shape/process-layout invariance the design claims
 (desman_tpu/parallel/sharded.py docstring).

@@ -97,11 +97,15 @@ def test_replicate_agreement():
 
 
 def test_pipeline_kernel_options(tmp_path):
-    """The YAML grid's `kernel` resolves through run.bind_kernel like the
-    CLI (r5: fit_grid previously passed unbound topk factories / the
-    resident marker straight into run_chain). Resident grid end-to-end;
-    topk factory binding verified on biallelic data."""
+    """The YAML grid's `kernel` resolves through ops.resolve_tau_sweep and
+    run.bind_kernel like the CLI: the xla grid runs end to end, the pallas
+    kernel (interpreted here) runs inside fit_grid's AOT-compiled per-G
+    programs, and the removed kernel names are refused, not defaulted."""
+    import functools
+
     from desman_tpu.model_selection import fit_grid
+    from desman_tpu.ops import resolve_tau_sweep
+    from desman_tpu.ops.tau_pallas import tau_sweep_pallas
 
     t = synth.generate(V=80, S=8, G=2, coverage=60.0, seed=4)
     counts = str(tmp_path / "counts.csv")
@@ -110,16 +114,17 @@ def test_pipeline_kernel_options(tmp_path):
         "counts": counts,
         "output_dir": str(tmp_path / "out"),
         "grid": {"g_min": 1, "g_max": 2, "seeds": [0], "iterations": 40,
-                 "kernel": "pallas_resident"},
+                 "kernel": "xla"},
     }
     summary = run_pipeline(config)
     assert summary["selected_G"] == 2
 
-    # topk factory binding inside fit_grid (biallelic data, no pipeline)
-    tb = synth.generate(V=64, S=6, G=2, coverage=50.0, seed=5,
-                        error_rate=0.0, max_alleles=2)
-    from desman_tpu.ops import resolve_tau_sweep
+    recs = fit_grid(t.data.counts, g_values=[2], seeds=[0, 1], iterations=20,
+                    tau_sweep=functools.partial(tau_sweep_pallas,
+                                                interpret=True))
+    assert len(recs) == 2 and all(np.isfinite(r.mean_deviance) for r in recs)
 
-    recs = fit_grid(tb.data.counts, g_values=[2], seeds=[0], iterations=20,
-                    tau_sweep=resolve_tau_sweep("pallas_topk"))
-    assert len(recs) == 1 and np.isfinite(recs[0].mean_deviance)
+    for gone in ("pallas_resident", "pallas_topk"):
+        with pytest.raises(ValueError, match="unknown tau kernel"):
+            run_pipeline({**config, "grid": {**config["grid"],
+                                              "kernel": gone}})
